@@ -1,10 +1,10 @@
-"""CAE-LO TPU: a TPU-native LiDAR odometry framework.
+"""caelo_tpu: a JAX LiDAR odometry framework on accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 SRainGit/CAE-LO (arXiv:2001.01354): spherical-ring projection, unsupervised
 CNN interest-point detection, multi-scale voxel-patch description, robust
 registration, odometry chaining, ICP refinement, loop closure and KITTI
-evaluation — engineered for TPU hardware (MXU matmuls, fixed shapes,
+evaluation — engineered for accelerators (batched matmuls, fixed shapes,
 device meshes) rather than translated from the reference's CUDA/Keras code.
 """
 

@@ -14,7 +14,7 @@ wider field of view than any single frame.
 
 ``burst_map_icp`` registers each burst frame against a progressively
 accumulated local map in the entry anchor's frame (the classic
-scan-to-submap odometry formulation, built TPU-native):
+scan-to-submap odometry formulation, as fixed-shape batched programs):
 
 * the whole span solves in ONE jitted ``lax.scan`` over a static
   ``max_span`` — per-frame ICP is a fixed-trip ``fori_loop`` whose

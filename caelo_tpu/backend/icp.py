@@ -1,13 +1,13 @@
-"""Iterative closest point on TPU: fixed-trip loops, matmul correspondence.
+"""Iterative closest point: fixed-trip loops, matmul correspondence.
 
 Replaces the reference ICP (``MyICP.py:28-71`` point-to-point and
 ``:127-201`` hybrid point-to-point + point-to-plane) whose inner loop is a
-sklearn KD-tree query per iteration.  TPU-native design:
+sklearn KD-tree query per iteration.  Design:
 
 * correspondence = brute-force nearest neighbor via the squared-distance
   matmul identity, tiled over the source cloud so the full MxN matrix never
-  materializes (pure MXU work — a KD-tree is hostile to the hardware, a
-  matmul is its native food);
+  materializes (a KD-tree's data-dependent traversal does not batch; a
+  matmul does);
 * the whole solve is ONE jitted ``lax.fori_loop`` with masked "done"
   freezing instead of data-dependent breaks (``MyICP.py:59-61``);
 * threshold decay / small-shift logic follows ``MyICP.py:63-67``.
@@ -62,9 +62,7 @@ def nearest_neighbors(query: jnp.ndarray, query_mask: jnp.ndarray,
 
 
 def _nn(query, query_mask, ref, ref_mask, cfg: IcpConfig):
-    """Correspondence search: the chunked XLA distance matmul.  (A Pallas
-    streaming-argmin alternative lost the fetch-synced v5e A/B — 1.93 vs
-    1.81 ms/call, PALLAS_AB.json — and was deleted.)"""
+    """Correspondence search: the chunked XLA distance matmul."""
     return nearest_neighbors(query, query_mask, ref, ref_mask)
 
 

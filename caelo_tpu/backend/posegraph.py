@@ -1,4 +1,4 @@
-"""Pose-graph optimization: matrix-free Gauss-Newton on TPU.
+"""Pose-graph optimization: matrix-free Gauss-Newton on the device.
 
 This component intentionally EXCEEDS the reference: its back end only
 forward-propagates single-pair ICP corrections (``ForwardUpdatePoses``,
@@ -7,7 +7,7 @@ forward-propagates single-pair ICP corrections (``ForwardUpdatePoses``,
 global solve over odometry + keyframe + loop edges (SURVEY.md section 7
 build-plan item 8).
 
-TPU-native design:
+Design:
 * poses are ``(R, t)`` arrays; the GN update is parameterized by per-node
   tangent increments ``delta in R^6`` (rotation right-increment, translation
   additive) with node 0 gauge-fixed;
@@ -15,7 +15,7 @@ TPU-native design:
   ``R_i^T (t_j - t_i) - t_meas`` — all batched, no Python loops over edges;
 * the normal equations are solved matrix-free with conjugate gradients
   using jvp/vjp for the J and J^T products — no Jacobian is ever
-  materialized, every CG step is a couple of batched 3x3 einsums (VPU/MXU)
+  materialized, every CG step is a couple of batched 3x3 einsums
   and a scatter-add;
 * ``optimize_sharded`` runs the same solve with the *edge set* sharded over
   the mesh's 'data' axis inside ``shard_map``: each device computes its
@@ -129,7 +129,7 @@ def optimize_host(R0, t0, graph: PoseGraph, n_iters: int = 20,
                   damping: float = 1e-6, tol: float = 1e-12):
     """Exact Gauss-Newton pose-graph solve on host float64 (scipy sparse LU).
 
-    Why this exists alongside the TPU ``optimize``: a chain-plus-loops graph
+    Why this exists alongside the device ``optimize``: a chain-plus-loops graph
     has normal-equation condition number O(N^2), so matrix-free CG needs
     ~N iterations to converge — at 520 frames, 60 CG iterations leave >90%
     of the loop correction on the table (measured: ATE 10.1 -> 9.8 m where
@@ -137,7 +137,8 @@ def optimize_host(R0, t0, graph: PoseGraph, n_iters: int = 20,
     block-tridiagonal + a few loop off-diagonals; a direct sparse
     factorization solves them exactly in milliseconds at seq-00 scale
     (N=4,541 -> 27k unknowns).  Pose bookkeeping in host f64 is also this
-    repo's accuracy invariant (TPU f32 matmul runs through bf16 MXU passes).
+    repo's accuracy invariant (device f32 matmuls may run at reduced
+    precision: TF32 on a GPU).
 
     Same parameterization/residuals as ``optimize``: per-node right-increment
     rotation + world-additive translation, node 0 gauge-fixed; residuals per

@@ -36,7 +36,7 @@ def _orth(R):
 
     Every pose row written by the host bookkeeping passes through here:
     device-computed corrections carry up to ~1e-4 of determinant error
-    (f32 storage + MXU bf16 passes), and the de-jump / refinement /
+    (f32 storage + reduced-precision matmul passes), and the de-jump / refinement /
     burst-splice cycles repeatedly RE-DERIVE rels from poses and re-chain
     — which compounds any det != 1 multiplicatively (measured: pose dets
     1.0 -> 1.57 over 519 frames, then an accepted burst splice re-chained
@@ -427,7 +427,7 @@ def refine_odometry_batched(poses, batched_icp_fn: Callable,
         # uncorrected (measured: 43 span refinements moved ATE 49.5 ->
         # 46.9 m; single-step re-registration of the same region is the
         # actual repair).  Chains exist in the reference for CPU economy —
-        # batched TPU ICP pays nothing for the extra spans.
+        # batched device ICP pays little for the extra spans.
         out = []
         for (i, j) in spans:
             if j - i > 1 and not np.all(np.asarray(pair_trusted[i:j], bool)):

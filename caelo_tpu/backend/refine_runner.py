@@ -129,7 +129,7 @@ def refine_pairs_batched(f0s: RefinementFeatures, f1s: RefinementFeatures,
 
     The reference refines spans strictly sequentially (``RefineOdometry``,
     ``RefinePoses.py:366-436``) because each acceptance forward-updates the
-    trajectory.  On TPU the expensive part — the hybrid ICP solves — can run
+    trajectory.  On the device the expensive part — the hybrid ICP solves — can run
     for ALL candidate spans in one batched call from the current trajectory
     (a Jacobi-style pass); the cheap accept/propagate logic stays host-side.
     One pass over S spans costs about the same as one span.

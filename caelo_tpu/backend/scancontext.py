@@ -17,7 +17,7 @@ layout nor propose a yaw.  This module adds a ScanContext-like signature
   (``frontend.registration.register_pair_with_prior``).
 
 Everything is a few tiny matmuls/gathers; the all-pairs search stays one
-MXU GEMM over the trajectory.
+GEMM over the trajectory.
 """
 from __future__ import annotations
 
@@ -123,12 +123,12 @@ def sc_correlation_matrix(scs: jnp.ndarray):
     and layout-aware (repeated-texture places that alias in pooled-descriptor
     space differ in their polar height layout).  Computed as S matmuls of
     the (N, R*S) row-normalized signature matrix against its sector-rolled
-    self with a running max — MXU work is S * 2 N^2 R S FLOPs (~2.7 TFLOP at
-    seq-00 scale N=4541, tens of ms on a v5e) and live memory stays at two
+    self with a running max — S * 2 N^2 R S FLOPs (~2.7 TFLOP at seq-00
+    scale N=4541) and live memory stays at two
     (N, N) buffers, never (N, N, S).  The circular shift in frequency space
     (FFT) would save the S-fold matmul but materializes the (N, N, S)
     correlation volume (5 TB at N=4541) to take the max — the rolled-matmul
-    form IS the TPU-native FFT-correlation evaluation.
+    form IS the batched FFT-correlation evaluation.
 
     Differences from :func:`align_score` (intentional, for matmul form):
     whole-matrix cosine instead of per-column mean cosine, and no

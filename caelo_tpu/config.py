@@ -1,4 +1,4 @@
-"""Static pipeline configuration for the CAE-LO TPU framework.
+"""Static pipeline configuration for the CAE-LO odometry framework.
 
 The reference keeps all of this as module-level constants-as-code scattered over
 ``Dirs.py``, ``SphericalRing.py:27-68`` and ``Voxel.py:14-52`` with no CLI or
@@ -102,12 +102,6 @@ class KeypointConfig:
     # <= -100 disables (parity with the reference, which has no such gate).
     ground_z_max: float = -1.2
     ground_extent_m: float = 0.3
-    # Use the fused Pallas saliency kernel (ops/pallas_nms.py).  Fetch-synced
-    # A/B on v5e (examples/pallas_ab.py, PALLAS_AB.json): Pallas 1.81 vs XLA
-    # 2.04 ms/frame over the 16-frame batch — Pallas wins, so it is the
-    # default on TPU (ops/nms.py falls back to the XLA path on CPU).  The
-    # one-time Mosaic compile is covered by the persistent compilation cache.
-    use_pallas_nms: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +110,7 @@ class VoxelConfig:
 
     Scene bounds +-100 x +-100 x +-15 m, base voxel 0.02 m, scale ratios
     1/8/32, blocks of 64 voxels (1.28 m).  All capacities are padded static
-    sizes for TPU-friendly fixed shapes.
+    sizes, so every program has fixed shapes.
     """
 
     voxel_size: float = 0.02
@@ -135,10 +129,10 @@ class VoxelConfig:
     # scene), quietly degrading the coarse descriptor context.
     max_voxels: Tuple[int, int, int] = (131072, 98304, 49152)
     # per-scale neighbor candidates for patch gather (reference used 496-NN,
-    # Voxel.py:182; we use an MXU-friendly 512 via approx_max_k)
+    # Voxel.py:182; we use 512 via approx_max_k)
     patch_knn: int = 512
     # patch gather algorithm: "window" = sorted-supercell range queries
-    # (exact box query, ~10x faster on TPU); "knn" = distance matmul +
+    # (exact box query); "knn" = distance matmul +
     # approx_max_k (the direct analog of the reference's 496-NN)
     patch_method: str = "window"
     # per-scale per-supercell candidate caps for the window method; voxels
@@ -164,11 +158,6 @@ class VoxelConfig:
     # search for its slot lookup instead of the dense id map (which would
     # be 143 MB/frame there).
     bitgrid_slots: Tuple[int, int, int] = (81920, 6144, 512)
-    # Pallas bit-table plane gather (ops/pallas_patches.py): one 1 KB row
-    # DMA per (keypoint, covering supercell) instead of XLA's
-    # element-granular gather.  TPU only; A/B'd fetch-synced before any
-    # default flip (PALLAS_AB.json).
-    use_pallas_plane_gather: bool = False
 
     @property
     def voxel_sizes(self) -> Tuple[float, float, float]:
@@ -219,7 +208,7 @@ class RansacConfig:
     residual threshold 0.4 m escalating x2 up to 1.6, >=max(100, 20%)
     inliers to accept, least-squares refit on the final inlier set.  The
     reference runs 100-500 *sequential* trials; we evaluate a fixed batch of
-    hypotheses for every threshold rung in parallel on the MXU.
+    hypotheses for every threshold rung in parallel.
     """
 
     n_hypotheses: int = 2048
@@ -235,8 +224,8 @@ class RansacConfig:
     # Hypotheses are sampled from the best `sample_top_frac` of pairs by
     # descriptor distance (residuals still evaluated on ALL pairs).  The
     # reference samples uniformly from up to 500 sequential trials
-    # (Match.py:182-184); batched hypotheses are nearly free on the MXU, so
-    # we run 2048 and bias the draw toward confident matches.
+    # (Match.py:182-184); batched hypotheses are cheap in one batched
+    # program, so we run 2048 and bias the draw toward confident matches.
     sample_top_frac: float = 0.5
 
 
@@ -254,10 +243,6 @@ class IcpConfig:
     min_inliers: int = 100
     max_points: int = 8192           # fixed-size subsample per cloud
     max_planar: int = 2048           # reference nMaxPts=2000, rounded up
-    # Correspondence search is the chunked XLA distance matmul.  A Pallas
-    # streaming-argmin kernel was A/B'd fetch-synced on v5e and LOST
-    # (1.93 vs 1.81 ms/call, PALLAS_AB.json) — and could not batch under
-    # vmap for the Jacobi refine path — so it was deleted (r4).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,8 +312,8 @@ class PipelineConfig:
     # prediction (GenerateTrajactory.m:210 semantics).  0 disables.
     prior_gate_m: float = 3.0
     # Model compute dtype for inference ("float32" | "bfloat16").  bf16 runs
-    # the conv stacks at the MXU's native width; descriptors are cast back to
-    # float32 for matching.  Golden bit-compat tests require float32.
+    # the conv stacks at the tensor cores' bf16 rate; descriptors are cast
+    # back to float32 for matching.  Golden bit-compat tests require float32.
     compute_dtype: str = "float32"
     # Patch-encoder activations.  The *shipped* reference artifact uses tanh
     # everywhere (TrainedModels/EncoderModel4VoxelPatch.h5 — authoritative,
@@ -340,8 +325,8 @@ class PipelineConfig:
     # Patch-encoder batch chunk: the merged 3-scale encoder call runs as a
     # lax.map over chunks of this many patches so the conv activations stay
     # bounded when the per-frame program is vmapped over a large window
-    # (64 frames x 3072 patches x 16^3 x 8ch f32 = 25.7 GB unchunked — OOMs
-    # a 16 GB v5e).  0 = single unchunked call.
+    # (64 frames x 3072 patches x 16^3 x 8ch f32 = 25.7 GB unchunked).
+    # 0 = single unchunked call.
     encoder_chunk: int = 1024
 
 

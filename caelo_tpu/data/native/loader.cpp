@@ -1,4 +1,4 @@
-// Native scan loader + multithreaded prefetcher for the CAE-LO TPU pipeline.
+// Native scan loader + multithreaded prefetcher for the CAE-LO pipeline.
 //
 // Host-side replacement for the reference's data-loading parallelism:
 // np.fromfile in 10 forked worker processes with Manager-list IPC

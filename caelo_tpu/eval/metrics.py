@@ -34,10 +34,10 @@ def relative_pose_errors(poses_gt, poses_est, R_tr, t_tr) -> RegistrationErrors:
     """Frame-to-frame lidar-frame relative-pose errors between two
     trajectories (both as (N, 12) KITTI rows).
 
-    Host float64 numpy, deliberately: evaluation must not run through the
-    TPU's bf16 matmul passes (default f32 precision), which quantize the
-    pose products by ~0.4% and injected ~0.3 m / ~0.4 deg of APPARENT
-    per-pair error at 520-frame scale (see chain_poses docstring)."""
+    Host float64 numpy, deliberately: evaluation must not run through
+    reduced-precision device matmuls (default f32 precision may be bf16
+    passes or TF32), which quantize the pose products and inject APPARENT
+    per-pair error at sequence scale (see chain_poses docstring)."""
     def rels(poses):
         P = np.asarray(poses, np.float64).reshape(-1, 3, 4)
         Rtr = np.asarray(R_tr, np.float64)

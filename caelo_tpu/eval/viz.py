@@ -4,7 +4,7 @@ The reference renders everything with mayavi windows (``Visualization.py``,
 ``ShowFusedPC.py``, inline blocks in most ``__main__``s) — interactive and
 unusable headless.  Here every view is either a saved matplotlib figure or a
 PLY export viewable in any point-cloud tool, so visualization works on a
-display-less TPU host.
+display-less accelerator host.
 
 Parity map:
 * ``ShowTrajactory`` (Visualization.py:18-35)  -> ``plot_trajectories``

@@ -1,4 +1,4 @@
-"""Baseline keypoint detectors: ISS, Harris3D, SIFT3D — TPU-vectorized.
+"""Baseline keypoint detectors: ISS, Harris3D, SIFT3D — batched JAX.
 
 The reference drives an external C++ PCL pybind wrapper (``PclKeyPts.py:
 92-122``; parameters at ``:41-58``: ISS salient/NMS radius 2 m, gamma
@@ -8,7 +8,7 @@ min_scale 0.5, 4 octaves, 8 scales/octave, min contrast 0.1) purely as
 batched JAX ops over a fixed-size downsampled cloud:
 
 * neighborhoods = K nearest points by ``approx_max_k`` over a distance
-  matmul (MXU), radius-masked — no KD-trees;
+  matmul, radius-masked — no KD-trees;
 * ISS: scatter covariance eigenvalues, saliency lambda3 with the
   gamma-ratio gates, radius NMS;
 * Harris3D: normal-covariance response ``det - k trace^2`` (PCL's

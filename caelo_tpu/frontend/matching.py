@@ -1,9 +1,9 @@
-"""Descriptor matching as an MXU distance matmul.
+"""Descriptor matching as a distance matmul.
 
 Replaces the reference's ``scipy.spatial.distance.cdist`` + ``argmin``
 (``Match.py:257-263``) with the matmul identity
-``||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b`` — a 1024x1024x60 contraction that
-maps directly onto the TPU systolic array.
+``||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b`` — one 1024x1024x60 matrix
+product.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def match_descriptors(codes0, mask0, codes1, mask1,
     ``GenerateTrajactory.m:210``) and only frame-0 keypoints within
     ``gate_m`` meters of the prediction are eligible.  This suppresses
     descriptor aliasing on repetitive structure; both distance matrices are
-    MXU matmuls.
+    matmuls.
 
     Returns:
       pair_idx: ``(K1,)`` index into frame 0 for each frame-1 keypoint.

@@ -1,8 +1,8 @@
-"""Batched RANSAC rigid-pose estimation on TPU.
+"""Batched RANSAC rigid-pose estimation on the device.
 
 The reference runs 100-500 *sequential* trials of {sample 4 pairs, SVD
 solve, 1024-point residual check} with an adaptive threshold ladder
-(``RANSAC4RT``, ``Match.py:162-218``).  On TPU we instead:
+(``RANSAC4RT``, ``Match.py:162-218``).  Here we instead:
 
 * draw all hypotheses at once (``n_hypotheses`` x 4 masked categorical draws),
 * solve every hypothesis in parallel with Horn's quaternion method (a
@@ -102,9 +102,8 @@ def ransac_rigid(key: jax.Array, pairs0: jnp.ndarray, pairs1: jnp.ndarray,
 
     # --- solve all hypotheses (batched Horn) and evaluate residuals, in a
     # structure-of-arrays layout: every array below is (H,)-, (S, H)- or
-    # (H, K)-shaped so the large axis rides the 128-lane dimension.  The
-    # AoS form ((H, S, 3) points, (H, 3, 3) rotations, einsum over j=3)
-    # wastes ~40x on lane padding and costs >100 ms per window on v5e.
+    # (H, K)-shaped so the large axis is the minor one, instead of the AoS
+    # form ((H, S, 3) points, (H, 3, 3) rotations, einsum over j=3).
     p0T = pairs0.T                                   # (3, K)
     p1T = pairs1.T
     s0 = p0T[:, samp.T]                              # (3, S, H)

@@ -1,6 +1,6 @@
 """End-to-end frame feature extraction and pairwise registration.
 
-The TPU-native equivalent of the reference's per-frame front-end chain
+The batched-device equivalent of the reference's per-frame front-end chain
 (``Match.py`` demo ``:286-349`` / ``PoseEstimation.GetRelativePoseBetween2-
 Frames`` ``:152-168``):
 
@@ -10,8 +10,8 @@ Frames`` ``:152-168``):
 
 Unlike the reference (whose inter-stage contract is .mat files on disk),
 ``extract_frame_features`` is ONE jitted device function per frame and
-``register_pair`` one more per pair — the stage boundary is VMEM/HBM, not the
-filesystem.  Artifact caching for restartability lives in
+``register_pair`` one more per pair — the stage boundary is device memory,
+not the filesystem.  Artifact caching for restartability lives in
 ``caelo_tpu.data.artifacts`` instead of being baked into the pipeline.
 """
 from __future__ import annotations
@@ -89,13 +89,13 @@ def _extract(respond_params, encoder_params, pts: jnp.ndarray,
     enc_params = cast(encoder_params)
     # one encoder call over all 3 scales stacked on the batch axis (vs the
     # reference's three predict() calls, Match.py:130-135): same weights per
-    # scale, 3x fewer kernel launches, better MXU batch shape
+    # scale, 3x fewer kernel launches, a larger matmul batch
     K = patches[0].shape[0]
     stacked = jnp.concatenate([p.astype(dt) for p in patches], axis=0)
     ck = cfg.encoder_chunk
     if ck and stacked.shape[0] > ck and stacked.shape[0] % ck == 0:
         # chunked lax.map keeps the conv activations bounded (HBM), while
-        # each chunk is still a full MXU batch; chunks pipeline back-to-back
+        # each chunk is still a large batch; chunks run back-to-back
         chunks = stacked.reshape(-1, ck, *stacked.shape[1:])
         codes_all = jax.lax.map(lambda c: enc.apply(enc_params, c), chunks)
         codes_all = codes_all.reshape(

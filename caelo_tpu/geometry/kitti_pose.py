@@ -3,7 +3,7 @@
 The reference stores trajectories as KITTI 3x4 row-major pose rows and
 conjugates lidar-frame relative motions with the camera-lidar calibration
 ``Tr`` (``Transformations.py:106-150``, ``PoseEstimation.py:259-267``).
-This module provides the batched TPU-friendly equivalents.
+This module provides the batched equivalents.
 
 Definitions (matching the reference exactly):
 * ``pose`` row = flattened ``[R | t]`` (3x4) mapping *camera-frame* points of
@@ -67,11 +67,10 @@ def chain_poses(rel_Rs, rel_ts, R_tr, t_tr, pose0=None):
     """Chain per-frame lidar relative motions into KITTI pose rows.
 
     Host float64 numpy, deliberately: the chain is a prefix product of
-    thousands of 4x4 matrices, and running it on the TPU quantizes every
-    product through the MXU's bf16 passes (default f32 matmul precision) —
-    measured on the 520-frame hard benchmark this alone injected ~0.3 m /
-    ~0.4 deg of apparent per-pair error into otherwise-excellent odometry
-    (direct rel-pose errors 0.089 m vs 0.316 m through the chained poses).
+    thousands of 4x4 matrices, and running it on a device at default f32
+    matmul precision (bf16 passes or TF32) quantizes every product — on the
+    520-frame hard benchmark this alone once injected ~0.3 m / ~0.4 deg of
+    apparent per-pair error into otherwise-excellent odometry.
     A few thousand 4x4 f64 products are microseconds on the host; this is
     pose bookkeeping (``PoseEstimation.py:254-267``), not device compute.
 

@@ -1,6 +1,6 @@
 """Batched SE(3) / rotation algebra in JAX.
 
-TPU-native replacement for the reference's per-matrix numpy loops in
+Batched replacement for the reference's per-matrix numpy loops in
 ``Transformations.py`` (Euler/quaternion/axis-angle converters at
 :181-272, relative-pose algebra at :94-150).  Everything here is pure
 ``jnp``, shape-polymorphic over leading batch dimensions, and jit/vmap
@@ -28,8 +28,9 @@ def apply(R: jnp.ndarray, t: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
 def compose(R1, t1, R2, t2):
     """Return the transform equal to applying (R2, t2) first, then (R1, t1).
 
-    HIGHEST matmul precision: TPU f32 matmuls default to bf16 MXU passes
-    (~1e-3 relative error), and pose composition CHAINS — a device-side
+    HIGHEST matmul precision: device f32 matmuls default to reduced
+    precision (TF32 on a GPU, ~1e-3 relative error), and pose composition
+    CHAINS — a device-side
     chain of default-precision 3x3 products drifts off SO(3) measurably
     (observed: det 0.976 after ~30 composed ICP steps; a 41-frame
     burst-rescue chain reached ||R^T R - I|| ~ 1.5 and exploded the
@@ -190,12 +191,10 @@ def max_eigvec_sym4x4_lanes(A: jnp.ndarray, sweeps: int = 8) -> jnp.ndarray:
     """Like ``max_eigvec_sym4x4`` but with the batch on the LAST axis:
     ``A`` is ``(4, 4, B)``, returns ``(4, B)``.
 
-    This is the TPU-fast layout: every matrix entry ``A[p, q]`` is a
-    ``(B,)`` lane-aligned vector, so all 48 Givens rotations are pure VPU
-    elementwise math with zero layout waste.  The batch-of-tiny-matmuls
-    formulation (``(B, 4, 4) @ (B, 4, 4)``) costs ~140 ms for B = 30k on
-    v5e because 4-wide minor dimensions pad 32x on the lane axis; this
-    version runs in microseconds.
+    Every matrix entry ``A[p, q]`` is a contiguous ``(B,)`` vector, so all
+    48 Givens rotations are elementwise math over the batch, instead of a
+    batch of tiny ``(B, 4, 4) @ (B, 4, 4)`` matmuls with 4-wide minor
+    dimensions.
     """
     B = A.shape[-1]
     V = jnp.zeros((4, 4, B), A.dtype) + jnp.eye(4, dtype=A.dtype)[..., None]
@@ -234,9 +233,8 @@ def max_eigvec_sym4x4(A: jnp.ndarray, sweeps: int = 8) -> jnp.ndarray:
     symmetric matrices 8 sweeps reach float32 machine precision.
 
     This replaces ``jnp.linalg.eigh`` in the Horn solves: XLA lowers `eigh`
-    to a sequential QR-style algorithm that costs ~8 ms for a 2048-batch of
-    4x4s on TPU — 60x the cost of the whole rest of the RANSAC step.  The
-    batched Jacobi runs entirely on the VPU in microseconds.
+    to a sequential QR-style algorithm per matrix; the batched Jacobi is
+    elementwise math over the whole batch.
     """
     V = jnp.broadcast_to(jnp.eye(4, dtype=A.dtype), A.shape)
     pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
@@ -251,7 +249,7 @@ def max_eigvec_sym4x4(A: jnp.ndarray, sweeps: int = 8) -> jnp.ndarray:
         c = jnp.cos(theta)[..., None, None]
         s = jnp.sin(theta)[..., None, None]
         # Givens matrix G built from constant masks (scatter-free: unrolled
-        # .at[] updates explode TPU compile time)
+        # .at[] updates on traced values bloat compile time)
         P = jnp.zeros((4, 4), A.dtype).at[p, p].set(1).at[q, q].set(1)
         S = jnp.zeros((4, 4), A.dtype).at[q, p].set(1).at[p, q].set(-1)
         G = eye - P + c * P + s * S
@@ -278,7 +276,7 @@ def solve_rigid_horn(
 ):
     """Weighted least-squares rigid transform mapping ``p1 -> p0``.
 
-    TPU-native replacement for the reference SVD Kabsch solver
+    Batched replacement for the reference SVD Kabsch solver
     (``Match.py:138-158``) using Horn's closed-form quaternion method (the
     same family as the reference MATLAB ``estimateRigidTransform.m:6-8``):
     build the symmetric 4x4 N-matrix from the cross-covariance and take the

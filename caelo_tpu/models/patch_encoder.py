@@ -1,4 +1,4 @@
-"""3D voxel-patch auto-encoder / descriptor encoder (Flax).
+"""3D voxel-patch auto-encoder / descriptor encoder.
 
 Re-implements the reference Keras model (``AE4VoxelPatch.py:184-213``): a 3D
 conv AE over 16^3 binary occupancy patches whose 20-dim bottleneck is the
@@ -13,46 +13,38 @@ available via the module parameters.
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
 
-import flax.linen as nn
 import jax.numpy as jnp
 
-
-def _act(name: str) -> Callable:
-    return {
-        "tanh": nn.tanh,
-        "relu": nn.relu,
-        "linear": lambda x: x,
-        "sigmoid": nn.sigmoid,
-    }[name]
+from .layers import (ACTIVATIONS, Module, Params, conv, dense, max_pool2x,
+                     upsample2x)
 
 
-class PatchEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PatchEncoder(Module):
     """16^3 occupancy patch -> code_dim descriptor."""
 
     code_dim: int = 20
     activation: str = "tanh"       # shipped weights; reference training: relu
     code_activation: str = "tanh"  # shipped weights; reference training: linear
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, p: Params, x):
         # x: (N, 16, 16, 16) or (N, 16, 16, 16, 1)
         if x.ndim == 4:
             x = x[..., None]
-        a = _act(self.activation)
-        h = a(nn.Conv(8, (3, 3, 3), padding="SAME", name="conv1")(x))
-        h = nn.max_pool(h, (2, 2, 2), strides=(2, 2, 2), padding="SAME")
-        h = a(nn.Conv(16, (3, 3, 3), padding="SAME", name="conv2")(h))
-        h = nn.max_pool(h, (2, 2, 2), strides=(2, 2, 2), padding="SAME")
-        h = a(nn.Conv(32, (3, 3, 3), padding="SAME", name="conv3")(h))
+        a = ACTIVATIONS[self.activation]
+        h = max_pool2x(a(conv(p, "conv1", x, 8, (3, 3, 3))))
+        h = max_pool2x(a(conv(p, "conv2", h, 16, (3, 3, 3))))
+        h = a(conv(p, "conv3", h, 32, (3, 3, 3)))
         h = h.reshape(h.shape[0], -1)  # Keras Flatten: channels-last C-order
-        h = a(nn.Dense(200, name="fn1")(h))
-        code = _act(self.code_activation)(nn.Dense(self.code_dim, name="fn2")(h))
-        return code
+        h = a(dense(p, "fn1", h, 200))
+        return ACTIVATIONS[self.code_activation](
+            dense(p, "fn2", h, self.code_dim))
 
 
-class VoxelPatchAE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class VoxelPatchAE(Module):
     """Full AE for unsupervised training (binary cross-entropy loss).
 
     Decoder mirrors ``AE4VoxelPatch.py:198-207``: Dense 200 -> Dense 2048 ->
@@ -63,34 +55,21 @@ class VoxelPatchAE(nn.Module):
     activation: str = "relu"
     code_activation: str = "linear"
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, p: Params, x):
         if x.ndim == 4:
             x = x[..., None]
         code = PatchEncoder(
             code_dim=self.code_dim,
             activation=self.activation,
             code_activation=self.code_activation,
-            name="encoder",
-        )(x)
-        a = _act(self.activation)
-        h = a(nn.Dense(200, name="fn3")(code))
-        h = a(nn.Dense(2048, name="fn4")(h))
+        ).forward(p.child("encoder"), x)
+        a = ACTIVATIONS[self.activation]
+        h = a(dense(p, "fn3", code, 200))
+        h = a(dense(p, "fn4", h, 2048))
         h = h.reshape(h.shape[0], 4, 4, 4, 32)
-        h = a(nn.Conv(16, (3, 3, 3), padding="SAME", name="conv2_1")(h))
-        h = _upsample2x3d(h)
-        h = a(nn.Conv(8, (3, 3, 3), padding="SAME", name="conv2_2")(h))
-        h = _upsample2x3d(h)
-        logits = nn.Conv(1, (3, 3, 3), padding="SAME", name="out")(h)
-        return logits  # apply sigmoid in the loss for stability
-
-
-def _upsample2x3d(x):
-    n, d, h, w, c = x.shape
-    x = jnp.broadcast_to(
-        x[:, :, None, :, None, :, None, :], (n, d, 2, h, 2, w, 2, c)
-    )
-    return x.reshape(n, d * 2, h * 2, w * 2, c)
+        h = upsample2x(a(conv(p, "conv2_1", h, 16, (3, 3, 3))))
+        h = upsample2x(a(conv(p, "conv2_2", h, 8, (3, 3, 3))))
+        return conv(p, "out", h, 1, (3, 3, 3))  # sigmoid is in the loss
 
 
 def describe(encoder_apply, params, patches3, batch_chunk: int | None = None):
@@ -98,7 +77,7 @@ def describe(encoder_apply, params, patches3, batch_chunk: int | None = None):
     (``GetFeaturesFromPatches``, ``Match.py:130-135``).
 
     Args:
-      encoder_apply: the bound/unbound PatchEncoder apply fn.
+      encoder_apply: the PatchEncoder apply fn.
       params: encoder params.
       patches3: tuple of three ``(K, 16, 16, 16)`` patch tensors.
     """

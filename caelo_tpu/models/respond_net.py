@@ -1,4 +1,4 @@
-"""2D convolutional auto-encoder over spherical-ring images (Flax).
+"""2D convolutional auto-encoder over spherical-ring images.
 
 Re-implements the reference Keras model (``AE4SphericalRingPC.py:128-146``):
 an unsupervised conv AE on the x,y,z channels whose first two conv layers
@@ -12,24 +12,27 @@ import 1:1 (``caelo_tpu.models.weights_io``).
 """
 from __future__ import annotations
 
-import flax.linen as nn
-import jax.numpy as jnp
+import dataclasses
+
+import jax
+
+from .layers import Module, Params, conv, max_pool2x, upsample2x
 
 
-class RespondLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class RespondLayer(Module):
     """The keypoint-saliency feature extractor (encoder head only)."""
 
     features: int = 8
     width: int = 32
 
-    @nn.compact
-    def __call__(self, x):
-        x = nn.relu(nn.Conv(self.width, (3, 3), padding="SAME", name="conv1_1")(x))
-        x = nn.relu(nn.Conv(self.features, (1, 1), padding="SAME", name="conv1_1_2")(x))
-        return x
+    def forward(self, p: Params, x):
+        x = jax.nn.relu(conv(p, "conv1_1", x, self.width, (3, 3)))
+        return jax.nn.relu(conv(p, "conv1_1_2", x, self.features, (1, 1)))
 
 
-class SphericalRingAE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SphericalRingAE(Module):
     """Full auto-encoder for unsupervised training (MSE reconstruction).
 
     Layer stack mirrors ``AE4SphericalRingPC.py:132-142``: the respond layer,
@@ -39,25 +42,13 @@ class SphericalRingAE(nn.Module):
 
     channels: int = 3
 
-    @nn.compact
-    def __call__(self, x):
-        h = RespondLayer(name="respond")(x)
-        h = nn.max_pool(h, (2, 2), strides=(2, 2), padding="SAME")
-        h = nn.relu(nn.Conv(16, (3, 3), padding="SAME", name="conv1_2")(h))
-        h = nn.max_pool(h, (2, 2), strides=(2, 2), padding="SAME")
-        h = nn.relu(nn.Conv(16, (3, 3), padding="SAME", name="conv2_2")(h))
-        h = _upsample2x(h)
-        h = nn.relu(nn.Conv(8, (3, 3), padding="SAME", name="conv2_3")(h))
-        h = _upsample2x(h)
-        r = nn.Conv(self.channels, (1, 1), padding="SAME", name="out")(h)
-        return r
-
-    def respond(self, x):
-        return RespondLayer(name="respond")(x)
-
-
-def _upsample2x(x):
-    """Nearest-neighbor 2x upsampling (Keras ``UpSampling2D``)."""
-    n, h, w, c = x.shape
-    x = jnp.broadcast_to(x[:, :, None, :, None, :], (n, h, 2, w, 2, c))
-    return x.reshape(n, h * 2, w * 2, c)
+    def forward(self, p: Params, x):
+        h = RespondLayer().forward(p.child("respond"), x)
+        h = max_pool2x(h)
+        h = jax.nn.relu(conv(p, "conv1_2", h, 16, (3, 3)))
+        h = max_pool2x(h)
+        h = jax.nn.relu(conv(p, "conv2_2", h, 16, (3, 3)))
+        h = upsample2x(h)
+        h = jax.nn.relu(conv(p, "conv2_3", h, 8, (3, 3)))
+        h = upsample2x(h)
+        return conv(p, "out", h, self.channels, (1, 1))

@@ -1,7 +1,7 @@
 """Fixed-shape masking / compaction primitives.
 
 Ragged data (variable point counts, variable inlier sets, variable occupied
-voxel counts) is the central obstacle to a TPU-native LiDAR pipeline: XLA
+voxel counts) is the central obstacle to a compiled LiDAR pipeline: XLA
 wants static shapes.  The reference handles raggedness with Python lists and
 boolean indexing; here every ragged quantity becomes a fixed-size buffer plus
 a validity mask, and these helpers implement the common moves (pad, compact,
@@ -53,7 +53,7 @@ def dedup_int_rows(rows: jnp.ndarray, mask: jnp.ndarray, size: int,
     Sorts rows lexicographically with ``lax.sort(num_keys=...)`` (invalid rows
     are pushed to the end with a +inf-like key), flags first occurrences, and
     compacts.  This replaces the reference's Python-dict voxel dedup
-    (``Voxel.py:126-158``) with two sorts + a scatter — all TPU-friendly.
+    (``Voxel.py:126-158``) with two sorts + a scatter — all fixed-shape.
 
     Args:
       rows: ``(N, K)`` int32 array, nonnegative entries for valid rows.

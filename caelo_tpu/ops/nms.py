@@ -1,8 +1,8 @@
 """Keypoint saliency + NMS over the respond image.
 
-TPU-native replacement for the reference's cupy CUDA kernel
-(``GetKeyPtsByAE``, ``SphericalRing.py:113-291`` — 1.8 s/frame on GPU, the
-slowest stage of the reference pipeline).  The computation is:
+Replacement for the reference's cupy CUDA kernel (``GetKeyPtsByAE``,
+``SphericalRing.py:113-291`` — 1.8 s/frame in the reference's own timing,
+the slowest stage of its pipeline).  The computation is:
 
 * for each pixel, the minimum L2 feature difference to its *occupied* 5x5
   neighbors (24 offsets) in the 8-channel respond image;
@@ -10,9 +10,10 @@ slowest stage of the reference pipeline).  The computation is:
   (``:126,199``), range >= 10 m (``:197-198``), edge crop 8 px (``:210-213``);
 * top-1024 by saliency (``:124,216-218``).
 
-Here it is a handful of fused elementwise maps (25 shifted slices, ~22 MFLOP)
-plus one ``lax.top_k`` — microseconds on TPU, no custom kernel required; XLA
-fuses the whole thing into a few VPU loops.
+The saliency map is 24 shifted slices (~22 MFLOP per frame) that XLA fuses
+into one loop.  (A hand-written Pallas/Triton version was 1.8x faster alone
+on an H100 but moved the window program by less than its run-to-run spread,
+so it was not kept — see PERF.md.)
 
 Deviation from the reference: its final slice ``[-n-1:-1]`` of the ascending
 argsort (``SphericalRing.py:216-218``) silently *drops the single strongest
@@ -26,6 +27,27 @@ import jax
 import jax.numpy as jnp
 
 from ..config import KeypointConfig, SensorConfig
+
+
+def saliency_map(respond: jnp.ndarray, occ: jnp.ndarray, rad: int = 2):
+    """Min squared feature difference of each pixel of ``respond`` (H, W, C)
+    to its occupied ``(2 rad + 1)^2`` neighbours (inf where none), and the
+    number of them, as plain shifted slices."""
+    H, W, C = respond.shape
+    fpad = jnp.pad(respond, ((rad, rad), (rad, rad), (0, 0)))
+    opad = jnp.pad(occ, ((rad, rad), (rad, rad)))
+    min_d2 = jnp.full((H, W), jnp.inf, jnp.float32)
+    n_occ = jnp.zeros((H, W), jnp.int32)
+    for dy in range(-rad, rad + 1):
+        for dx in range(-rad, rad + 1):
+            if dy == 0 and dx == 0:
+                continue
+            nf = jax.lax.dynamic_slice(fpad, (rad + dy, rad + dx, 0), (H, W, C))
+            nocc = jax.lax.dynamic_slice(opad, (rad + dy, rad + dx), (H, W))
+            d2 = jnp.sum((nf - respond) ** 2, axis=-1)
+            min_d2 = jnp.minimum(min_d2, jnp.where(nocc, d2, jnp.inf))
+            n_occ = n_occ + nocc.astype(jnp.int32)
+    return min_d2, n_occ
 
 
 @functools.partial(jax.jit, static_argnames=("sensor", "kp"))
@@ -49,30 +71,8 @@ def select_keypoints(image: jnp.ndarray, counter: jnp.ndarray,
     """
     H, W, C = respond.shape
     occ = (counter[:H, :W] > 0)
-    rad = kp.window // 2
-
-    if rad == 2 and kp.use_pallas_nms and jax.default_backend() not in ("cpu",):
-        # fused single-pass Pallas kernel on TPU (ops/pallas_nms.py)
-        from .pallas_nms import saliency_map_pallas
-
-        min_d2, n_occ = saliency_map_pallas(respond, occ)
-    else:
-        fpad = jnp.pad(respond, ((rad, rad), (rad, rad), (0, 0)))
-        opad = jnp.pad(occ, ((rad, rad), (rad, rad)))
-
-        min_d2 = jnp.full((H, W), jnp.inf, jnp.float32)
-        n_occ = jnp.zeros((H, W), jnp.int32)
-        for dy in range(-rad, rad + 1):
-            for dx in range(-rad, rad + 1):
-                if dy == 0 and dx == 0:
-                    continue
-                nf = jax.lax.dynamic_slice(
-                    fpad, (rad + dy, rad + dx, 0), (H, W, C)
-                )
-                nocc = jax.lax.dynamic_slice(opad, (rad + dy, rad + dx), (H, W))
-                d2 = jnp.sum((nf - respond) ** 2, axis=-1)
-                min_d2 = jnp.minimum(min_d2, jnp.where(nocc, d2, jnp.inf))
-                n_occ = n_occ + nocc.astype(jnp.int32)
+    with jax.named_scope("saliency"):
+        min_d2, n_occ = saliency_map(respond, occ, kp.window // 2)
 
     saliency = jnp.sqrt(jnp.where(jnp.isfinite(min_d2), min_d2, 0.0))
 

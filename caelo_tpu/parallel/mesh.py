@@ -2,7 +2,7 @@
 
 The reference's only parallelism is single-node multiprocessing with
 Manager-list IPC (``BatchPreprocess.py:157,215-225``,
-``PoseEstimation.py:214-228``).  The TPU-native counterpart is a
+``PoseEstimation.py:214-228``).  The device-level counterpart is a
 ``jax.sharding.Mesh`` with named axes:
 
 * ``"data"`` — frame-level data parallelism (the analog of the reference's
@@ -11,7 +11,9 @@ Manager-list IPC (``BatchPreprocess.py:157,215-225``,
   (unused at the reference's model sizes but wired for scale).
 
 Multi-host bring-up goes through ``initialize_distributed`` -> one global
-mesh over all chips; collectives ride ICI inside a slice and DCN across.
+mesh over all devices.  The mesh is a plain reshape of the device list:
+every GPU of a host reaches every other over NVLink at the same rate, so
+no axis order is preferred.
 """
 from __future__ import annotations
 

@@ -85,9 +85,11 @@ def extract_refinement_features_batched(scans, respond_params,
 
 def stage_refinement(poses_dj, ref_feats, inlier_pairs, R_tr, t_tr,
                      cfg: PipelineConfig, batched: bool = True,
-                     pair_trusted=None):
+                     pair_trusted=None, devices=None):
     """Keyframe-transfer ICP refinement: poses__ -> poses___
-    (``RefineOdometry``, ``RefinePoses.py:338-464``)."""
+    (``RefineOdometry``, ``RefinePoses.py:338-464``).  The batched solves
+    shard over ``devices`` (default: every visible device) when there is
+    more than one."""
     def rel_lidar_fn(p0, p1):
         from .geometry.kitti_pose import rel_pose_lidar
 
@@ -110,7 +112,7 @@ def stage_refinement(poses_dj, ref_feats, inlier_pairs, R_tr, t_tr,
         # On a multi-device mesh the span axis shards over 'data'
         # (SURVEY section 2.4 keyframe-span partitioning; bit-identical to
         # the single-device path — see test_multichip).
-        devs = jax.devices()
+        devs = jax.devices() if devices is None else list(devices)
         if len(devs) > 1:
             from .parallel.mesh import make_mesh
             from .parallel.pipeline import make_sharded_icp_fn
@@ -417,7 +419,7 @@ def stage_loop_closure(poses_ref, feats, rel_Rs, rel_ts, R_tr, t_tr,
                      weight=np.asarray(g.weight),
                      rot_info=np.asarray(g.rot_info))
         # Exact host-f64 GN (direct sparse factorization).  The matrix-free
-        # TPU CG path needs ~N iterations on a chain-conditioned graph
+        # device CG path needs ~N iterations on a chain-conditioned graph
         # (cond ~ N^2): at 520 frames, 8x60 CG iterations recovered <10% of
         # the loop correction (ATE 13.5 -> 12.3 m) where the exact solve
         # collapses it (measured 10.1 -> 0.30 m on the drift experiment).

@@ -6,10 +6,10 @@ half of the hybrid ICP therefore never fires with real data (the intended
 computation survives as the commented block ``SphericalRing.py:268-276``:
 5x5-window covariance eigendecomposition, keep near-vertical normals).
 README.md:30 lists it as future work.  Here it is implemented for real, as
-batched TPU ops:
+batched device ops:
 
 * per-pixel 5x5 window covariance over the ring image (shifted-slice sums,
-  same trick as the NMS kernel — pure VPU work);
+  same trick as the NMS saliency map — elementwise work);
 * smallest-eigenvector normal via the closed-form symmetric 3x3
   eigensolver (Smith's trigonometric method) on scalar planes;
 * planarity gate: smallest eigenvalue ratio + the reference's low-saliency
@@ -17,9 +17,8 @@ batched TPU ops:
 
 Layout note (r3): every intermediate is a structure-of-planes — separate
 ``(H, W)`` arrays per vector/matrix component — never ``(H, W, 3)`` or
-``(H, W, 3, 3)``.  A 3-wide trailing dim pads 42.7x on TPU (8, 128)
-tiles; the AoS formulation of this function alone cost ~0.9 GB per frame
-of padding inside the fused window program and OOMed the 16-frame compile.
+``(H, W, 3, 3)``: the AoS formulation multiplies the memory of the fused
+window program where the compiler pads narrow minor dimensions.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Spherical-ring projection as a single jitted scatter.
 
-TPU-native replacement for the reference's pure-Python per-point loop
+Vectorized replacement for the reference's pure-Python per-point loop
 (``ProjectPC2SphericalRing``, ``SphericalRing.py:72-94`` — the hot loop of
 the preprocessing stage, ~120k trig-and-bin iterations per scan).  Here the
 whole scan is binned with vectorized trig and three scatters.

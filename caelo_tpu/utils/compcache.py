@@ -1,27 +1,35 @@
 """Persistent XLA compilation cache.
 
-Remote-TPU compiles cost 1-4 minutes per distinct jitted program (and the
-fused Pallas NMS kernel ~3 min of Mosaic compile); a persistent cache makes
-them one-time costs per container instead of per process.  The reference has
-no analog (its 'cache' is Keras .h5 re-loading); this is TPU-operational
-infrastructure the framework owes its users.
+The window programs take minutes to compile; a persistent cache makes that
+a one-time cost per cache directory instead of per process.  The directory
+is ``JAX_COMPILATION_CACHE_DIR`` when that is set (JAX reads it itself, and
+nothing here overrides it); otherwise one fixed directory inside the
+checkout, so every process of a checkout finds what the others compiled.
 """
 from __future__ import annotations
 
 import os
 
-DEFAULT_CACHE_DIR = os.path.expanduser("~/.cache/caelo_tpu/xla")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
+
+def cache_dir(path: str | None = None) -> str:
+    """The directory the cache uses: ``path``, else the environment's
+    ``JAX_COMPILATION_CACHE_DIR``, else ``DEFAULT_CACHE_DIR``."""
+    return os.path.abspath(os.path.expanduser(
+        path or os.environ.get(ENV_VAR) or DEFAULT_CACHE_DIR))
 
 
 def enable_compilation_cache(path: str | None = None) -> str:
-    """Point JAX's persistent compilation cache at ``path`` (created if
-    missing).  Call before the first jit dispatch; returns the directory.
-
-    Safe to call multiple times; subsequent calls just update the path.
-    """
+    """Point JAX's persistent compilation cache at ``cache_dir(path)``
+    (created if missing).  Call before the first jit dispatch; returns the
+    directory.  Safe to call multiple times."""
     import jax
 
-    p = os.path.abspath(os.path.expanduser(path or DEFAULT_CACHE_DIR))
+    p = cache_dir(path)
     os.makedirs(p, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", p)
     # cache everything that took noticeable compile time; the big pipeline
@@ -33,7 +41,7 @@ def enable_compilation_cache(path: str | None = None) -> str:
 
 def cache_entries(path: str | None = None) -> int:
     """Number of persisted executables (for tests/telemetry)."""
-    p = os.path.abspath(os.path.expanduser(path or DEFAULT_CACHE_DIR))
+    p = cache_dir(path)
     if not os.path.isdir(p):
         return 0
     return sum(1 for n in os.listdir(p) if not n.startswith("."))

@@ -77,6 +77,19 @@ def trace(logdir: str | None = None, name: str = "caelo"):
             jax.profiler.stop_trace()
 
 
+def gpu_name_and_power_limit() -> str:
+    """Each card's name and power limit as ``nvidia-smi`` reports them, one
+    line per card.  A card set below its maximum power runs slower under a
+    matrix-heavy load, so every device number is kept beside this."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
 class MetricsLog:
     """Append-only JSONL metrics stream, one record per event."""
 

@@ -1,4 +1,4 @@
-"""Three-scale sparse voxelization and patch extraction, TPU-first.
+"""Three-scale sparse voxelization and patch extraction in fixed shapes.
 
 Replaces the reference's Python-dict block voxelizer (``Voxelization``,
 ``Voxel.py:100-173``) and its sklearn-KNN patch extractor (``GetPatchesList``,
@@ -10,8 +10,8 @@ Replaces the reference's Python-dict block voxelizer (``Voxelization``,
   (``AllVoxels0/1/2``); the CSR block structure (``avlBlocksList`` /
   ``cntVoxelsLength``) is recoverable via ``caelo_tpu.voxel.blocks``.
 * **Patches**: for each keypoint and scale, the 512 nearest occupied voxels
-  (in voxel-index space) are found with a distance *matmul* on the MXU plus
-  ``lax.approx_max_k`` — the TPU-native analog of the reference's KD-tree
+  (in voxel-index space) are found with a distance *matmul* plus
+  ``lax.approx_max_k`` — the fixed-shape analog of the reference's KD-tree
   496-NN (``Voxel.py:182-196``) — then box-filtered to the 16^3 window and
   scattered into the patch tensor.  No trees, no host round-trips.
 """
@@ -205,22 +205,21 @@ def _patches_one_scale_window(kv, key_mask, vox, vox_mask,
     so the candidate set is 8 contiguous runs of the sorted array found with
     vectorized binary search.  This replaces the distance-matmul +
     ``approx_max_k`` KNN (the reference's sklearn 496-NN, ``Voxel.py:
-    182-196``) with ~1 ms of sort + gather + scatter on TPU — and is *more*
-    faithful: no nearest-k truncation, only a generous per-supercell cap.
+    182-196``) with a sort + gather + scatter — and is *more* faithful: no
+    nearest-k truncation, only a generous per-supercell cap.
 
     Keypoints are processed in ``cfg.patch_query_chunk`` chunks under
     ``lax.map`` so the candidate gather temp stays bounded — unchunked it is
     ``(K, 8, C)`` int32 per frame, which under a 64-frame window vmap is a
-    multi-GB HLO temp per scale (OOMs a 16 GB chip).
+    multi-GB temp per scale.
 
-    Honest-timing-driven layout choices (measured on v5e, 16-frame batch):
+    Layout choices:
     * candidates are gathered as ONE packed int32 per voxel (4-bit local
       coords within the 16-aligned supercell) instead of a ``(M, 3)`` row
-      gather — a 3-wide trailing dim wastes 125/128 lanes per gather;
+      gather;
     * every non-dropped scatter index is unique by construction (distinct
       voxels -> distinct cells; dropped candidates get *distinct*
-      out-of-range ids), so the scatter runs with ``unique_indices=True``
-      (measured ~1.2x);
+      out-of-range ids), so the scatter runs with ``unique_indices=True``;
     * ``cfg.supercell_caps`` sized from measured per-supercell occupancy
       (max 64/195/439 on KITTI-like scans) — cost is linear in the cap.
     """
@@ -238,7 +237,7 @@ def _patches_one_scale_window(kv, key_mask, vox, vox_mask,
     sc = vox >> pbits                                 # (M, 3) supercell coords
     lin = sc[:, 0] * (sgy * sgz) + sc[:, 1] * sgz + sc[:, 2]
     lin = jnp.where(vox_mask, lin, jnp.iinfo(jnp.int32).max)
-    # packed 4-bit local coords: one lane-friendly int32 gather per candidate
+    # packed 4-bit local coords: one int32 gather per candidate
     pmask = P - 1
     local = (((vox[:, 0] & pmask) << (2 * pbits))
              | ((vox[:, 1] & pmask) << pbits)
@@ -273,9 +272,6 @@ def _patches_one_scale_window(kv, key_mask, vox, vox_mask,
 
         take = left[..., None] + jnp.arange(C, dtype=jnp.int32)  # (k, 8, C)
         valid = jnp.arange(C, dtype=jnp.int32)[None, None, :] < cnt[..., None]
-        # measured on v5e (r3): fetching the runs as contiguous vmapped
-        # dynamic_slices instead of this element gather changes nothing
-        # (25.4 vs 24.9 ms/frame) — the gather is not the bottleneck here
         loc = local_sorted[jnp.clip(take, 0, M - 1)]  # (k, 8, C) int32
 
         # absolute voxel = supercell * P + local;  offsets per axis
@@ -321,8 +317,8 @@ def bitgrid_scatter_plan(vox, vox_mask, cfg: VoxelConfig, scale: int,
     ``indices_are_sorted=True`` invariant of the build scatter — ``idx``
     globally NONDECREASING under a ``voxelize()`` presorted pyramid,
     including padding and slot-overflow rows — is directly testable
-    (XLA treats a violation as undefined behavior on the TPU
-    sorted-scatter path; see ``tests/test_voxel.py``)."""
+    (XLA treats a violation as undefined behavior on its sorted-scatter
+    path; see ``tests/test_voxel.py``)."""
     P = cfg.patch_size
     pbits = P.bit_length() - 1
     pmask = P - 1
@@ -357,8 +353,7 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask,
     (bits are unique per deduped voxel, so add == or).  Query = per patch
     column, gather the 2 straddled words and shift-combine — 512 word
     gathers per keypoint instead of ~4k per-candidate gathers (the
-    windowed-gather path, ``_patches_one_scale_window``).  Measured on v5e:
-    scale 1+2 drop from ~100 ms to ~10 ms/frame.
+    windowed-gather path, ``_patches_one_scale_window``).
 
     ``slots`` is the static supercell-slot capacity; supercells beyond it
     are dropped (sized ~2x measured occupancy).
@@ -415,8 +410,7 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask,
         # among occupied ids = prefix popcount up to qid.  Per query: ONE
         # contiguous 16-word row gather + ONE block-prefix gather + VPU
         # popcounts — versus the 17 dependent gathers of the searchsorted
-        # binary search this replaces (measured 2.9 ms/frame of the
-        # 12.7 ms scale-0 patch stage).
+        # binary search this replaces.
         WPB = 16                       # words per rank block (512 ids)
         n_words = -(-n_ids // 32)
         n_blocks = -(-n_words // WPB)
@@ -480,10 +474,9 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask,
 
     # ---- query: gather the 2x2x2 covering supercells' WHOLE word planes
     # (8 contiguous 256-word row gathers per keypoint), then align with
-    # shifts/slices on the VPU.  The per-column formulation this replaces
-    # did 4 independent element gathers per (keypoint, column) = ~1M
-    # scattered int32 gathers per frame at ~10 ns each — gather count, not
-    # bytes, is what the measurement said dominates (ROADMAP r3).
+    # shifts/slices.  The per-column formulation this replaces did 4
+    # independent element gathers per (keypoint, column) = ~1M scattered
+    # int32 gathers per frame.
     ox = kv - R                                       # (K, 3) window origin
     o = ox & pmask                                    # (K, 3) offset in cell A
     sA = ox >> pbits                                  # (K, 3) first supercell
@@ -499,15 +492,7 @@ def _patches_one_scale_bitgrid(kv, key_mask, vox, vox_mask,
     slot = lookup(nlin, okb)                          # slots = zero plane
     table2 = jnp.concatenate(
         [table, jnp.zeros((P * P,), jnp.int32)]).reshape(slots + 1, P, P)
-    if (cfg.use_pallas_plane_gather and K % 16 == 0
-            and jax.default_backend() not in ("cpu",)):
-        # one contiguous 1 KB row DMA per (keypoint, covering cell)
-        # instead of XLA's element-granular gather (ops/pallas_patches.py)
-        from ..ops.pallas_patches import gather_planes_pallas
-
-        planes = gather_planes_pallas(table2, slot)
-    else:
-        planes = table2[slot]                         # (K, 2,2,2, P, P)
+    planes = table2[slot]                             # (K, 2,2,2, P, P)
 
     # z: combine the two z-adjacent planes into 16-bit windows per column
     shift = (ox[:, 2] & pmask)[:, None, None, None, None]

@@ -245,8 +245,7 @@ def main():
         # dejumped) is ill-conditioned in the RNG-seed dimension: on the
         # SAME degraded scene the front end's dejumped ATE spans
         # 13.2-25.6 m across registration seeds (some draws survive the
-        # burst), while the clean-circuit raw ATE is 13.3-13.7 m
-        # (HARD_BENCH.json).  When a draw lands at the clean bound there
+        # burst), while the clean-circuit raw ATE is 13.3-13.7 m.  When a draw lands at the clean bound there
         # is no damage to repair and a correct rescue is a no-op — the
         # ratio gate then demands the rescue beat the clean front end,
         # which no evidence-based acceptance should attempt.  Gates:

@@ -1,11 +1,11 @@
-"""End-to-end demo: synthetic scan pair -> full CAE-LO TPU front end -> pose.
+"""End-to-end demo: synthetic scan pair -> full CAE-LO front end -> pose.
 
 The framework's equivalent of the reference's ``python Match.py`` demo
 (``Match.py:286-373``): extract keypoints + descriptors for two scans with
 the *shipped reference weights*, match, run batched RANSAC, and print the
 pose error against ground truth.
 
-Run on TPU (default) or CPU:  JAX_PLATFORMS=cpu python examples/register_pair_demo.py
+Run on the GPU (default) or CPU:  JAX_PLATFORMS=cpu python examples/register_pair_demo.py
 """
 import time
 

@@ -4,8 +4,7 @@ A sensor-degradation burst (heavy dropout + occluded azimuth wedge) over a
 turn makes the descriptor front end fail or register confidently-wrong
 pairs; the refinement stage must actively repair the trajectory — the
 reference's reason for the stage to exist (``RefinePoses.py:338-464``).
-The full-size artifact is ``HARD_BENCH_DEGRADED.json``
-(``examples/hard_benchmark.py --degraded``).
+The full-size version is ``examples/hard_benchmark.py --degraded``.
 """
 import numpy as np
 import pytest

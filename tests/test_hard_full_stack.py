@@ -2,8 +2,7 @@
 front end + de-jump + refinement + loop closure + pose-graph solve on a
 closed mini-circuit with a genuine revisit (VERDICT r2 item 1: the back-end
 stages must be quality-gated on the hard ray-cast scenes, not only the
-front end).  The full-size version is ``examples/hard_benchmark.py``; its
-520-frame TPU result is committed in ``HARD_BENCH.json``.
+front end).  The full-size version is ``examples/hard_benchmark.py``.
 """
 import dataclasses
 

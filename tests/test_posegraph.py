@@ -113,7 +113,7 @@ def test_optimize_host_exact_graph_stays_put():
 def test_optimize_host_collapses_loop_drift(rng):
     """The direct f64 sparse GN must CONVERGE (unlike iteration-starved CG):
     on noisy odometry + one exact loop edge, the endpoint gap collapses to
-    ~noise scale and the solve beats the TPU-CG result."""
+    ~noise scale and the solve beats the device-CG result."""
     from caelo_tpu.backend.posegraph import optimize_host
 
     Rs, ts = make_square_trajectory()
@@ -142,9 +142,9 @@ def test_optimize_host_collapses_loop_drift(rng):
         atol=1e-10)
 
 
-def test_optimize_host_matches_tpu_optimum():
+def test_optimize_host_matches_device_optimum():
     """On a small graph (where CG CAN converge) the host solve and the
-    jitted TPU-path solve agree."""
+    jitted device-path solve agree."""
     from caelo_tpu.backend.posegraph import optimize_host
 
     rng = np.random.default_rng(3)

@@ -111,7 +111,7 @@ def test_keypoint_voxels_truncation():
 def test_bitgrid_scatter_indices_sorted(rng):
     """The bit-table build declares ``indices_are_sorted=True`` under a
     presorted pyramid (ADVICE r4): XLA treats a violation as undefined
-    behavior on the TPU sorted-scatter path, so pin the invariant against
+    behavior on its sorted-scatter path, so pin the invariant against
     REAL ``voxelize()`` output — padded rows, slot-overflow rows and all."""
     from caelo_tpu.voxel.grid import bitgrid_scatter_plan
 
